@@ -1,9 +1,9 @@
-"""BASELINE config 5: demo-scene-scale inverse rendering on one chip.
+"""BASELINE config 5: demo-scene-scale inverse rendering on one GPU.
 
 Recovers perturbed material parameters (albedo + emissive across many
 objects) of the 48-sphere/7-cuboid demo scene by pixel-MSE gradient descent
 against a rendered target, using the production differentiable path
-(Pallas forward + Pallas backward, tpt.kernels.trace_grad).
+(Pallas forward + XLA reverse mode, tpt.kernels.trace_grad).
 
 All machinery lives in the library (tpt.optim: fixed-depth transport,
 clipped-Adam with the constant-then-cosine schedule, multi-view step,
@@ -50,13 +50,15 @@ def main() -> int:
                     help="save/resume optimizer state here every "
                          "--checkpoint-every steps")
     ap.add_argument("--checkpoint-every", type=int, default=500)
-    ap.add_argument("--out", default="artifacts/inverse_demo.json")
+    ap.add_argument("--out", default="results/inverse_demo.json")
     args = ap.parse_args()
     width, height = map(int, args.size.split("x"))
 
     import jax
     import jax.numpy as jnp
     from tpt.utils import enable_persistent_cache
+    from tpt.utils.profiling import require_gpu
+    require_gpu("inverse_demo")
     enable_persistent_cache()
     from tpt import CameraConfig, demo_scene
     from tpt.env import constant_environment, pack_block_table
@@ -164,6 +166,7 @@ def main() -> int:
     write_png("artifacts/inverse_after.png",
               np.asarray(post_process(render(*params, jnp.int32(0), 0))))
     print(json.dumps(result))
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
     return 0

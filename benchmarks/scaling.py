@@ -1,16 +1,12 @@
-"""Scaling-efficiency harness: dp=1..N on whatever devices exist.
+"""Scaling harness: the sharded renderer at dp = 1, 2, 4, ... cards.
 
-Runs the production sharded renderer (Pallas kernel backend) at each mesh
-size and reports parallel efficiency = T(1) / (N * T(N)).
+Runs the production sharded renderer (Pallas kernel backend,
+tpt.parallel.make_dist_renderer) on the first dp cards of the machine and
+reports parallel efficiency = T(1) / (dp * T(dp)), beside the card's name
+and power limit.  The sharded program itself is checked on the CPU by
+tests/test_dist.py on virtual devices; this script only times it.
 
-On a real multi-chip slice this measures ICI scaling; on a single-chip or
-CPU host it runs against the virtual-device mesh
-(JAX_PLATFORMS=cpu + jax_num_cpu_devices), which exercises the identical
-shard_map/psum program — a correctness-of-scaling harness, not a hardware
-number (interpret-mode Pallas on CPU is orders slower; only the *relative*
-efficiency column is meaningful there).
-
-Usage: python benchmarks/scaling.py [--cpu N] [--width W] [--height H]
+Usage: python benchmarks/scaling.py [--width W] [--height H] [--depth D]
 """
 
 import argparse
@@ -25,22 +21,17 @@ sys.path.insert(0, ".")
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--cpu", type=int, default=0,
-                    help="simulate N virtual CPU devices (0 = real devices)")
-    ap.add_argument("--width", type=int, default=256)
-    ap.add_argument("--height", type=int, default=256)
-    ap.add_argument("--depth", type=int, default=5)
+    ap.add_argument("--width", type=int, default=1920)
+    ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--depth", type=int, default=13)
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--out", default=None,
-                    help="write the results JSON to this file as well")
     args = ap.parse_args()
 
-    if args.cpu:
-        import jax
-        jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_num_cpu_devices", args.cpu)
     import jax
-    import jax.numpy as jnp
+    from tpt.utils import enable_persistent_cache
+    from tpt.utils.profiling import card_line, require_gpu
+    require_gpu("scaling")
+    enable_persistent_cache()
     from tpt import CameraConfig, RenderConfig, demo_scene
     from tpt.camera import camera_matrices
     from tpt.env import constant_environment
@@ -58,46 +49,31 @@ def main() -> int:
     t1 = None
     dp = 1
     while dp <= n_dev:
-        mesh = make_mesh(dp=dp, sp=1, devices=np.asarray(jax.devices()[:dp]))
+        mesh = make_mesh(dp=dp, sp=1, devices=jax.devices()[:dp])
         render = make_dist_renderer(mesh, cfg)
-        out, rays = render(scene, env, inv_p, inv_v, cam.focal_length,
-                           cam.aperture_diameter, 0)
-        jax.block_until_ready(out)
+        jax.block_until_ready(render(scene, env, inv_p, inv_v,
+                                     cam.focal_length,
+                                     cam.aperture_diameter, 0))
         ts = []
         for i in range(args.reps):
-            t0 = time.time()
-            out, rays = render(scene, env, inv_p, inv_v, cam.focal_length,
-                               cam.aperture_diameter, i + 1)
-            jax.block_until_ready(out)
-            ts.append(time.time() - t0)
+            t0 = time.perf_counter()
+            jax.block_until_ready(render(scene, env, inv_p, inv_v,
+                                         cam.focal_length,
+                                         cam.aperture_diameter, i + 1))
+            ts.append(time.perf_counter() - t0)
         t = float(np.median(ts))
-        if t1 is None:
-            t1 = t
-        eff = t1 / (dp * t)
-        results.append({"dp": dp, "ms": round(t * 1e3, 2),
-                        "efficiency": round(eff, 3)})
-        print(f"dp={dp:2d}: {t*1e3:9.2f} ms  efficiency {eff:5.1%}",
-              flush=True)
+        t1 = t if t1 is None else t1
+        results.append({"dp": dp, "ms": t * 1e3,
+                        "efficiency": t1 / (dp * t)})
+        print(f"dp={dp:2d}: {t * 1e3:9.3f} ms  efficiency "
+              f"{t1 / (dp * t):6.1%}", flush=True)
         dp *= 2
 
-    payload = {
-        "metric": "dp_scaling",
-        "platform": jax.default_backend(),
-        "n_devices": n_dev,
-        "virtual_cpu_mesh": bool(args.cpu),
-        "note": ("virtual CPU mesh: validates the sharded program "
-                 "(shard_map/psum correctness), NOT ICI efficiency — "
-                 "interpret-mode Pallas timing is not a hardware number"
-                 if args.cpu else
-                 "real devices: wall-clock parallel efficiency"),
-        "config": {"width": args.width, "height": args.height,
-                   "ray_depth": args.depth, "spp": 1},
-        "results": results,
-    }
-    print(json.dumps(payload))
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump(payload, f, indent=1)
+    print(json.dumps({"metric": "dp_scaling", "card": card_line(),
+                      "n_devices": n_dev,
+                      "config": {"width": args.width, "height": args.height,
+                                 "ray_depth": args.depth, "spp": 1},
+                      "results": results}))
     return 0
 
 

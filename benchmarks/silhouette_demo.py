@@ -30,7 +30,7 @@ def main() -> int:
                          "'demo' = a 6x6-grid sphere inside the FULL "
                          "48-sphere/7-cuboid demo scene (occlusion, "
                          "textured background, secondary bounces)")
-    ap.add_argument("--out", default="artifacts/silhouette_demo.json")
+    ap.add_argument("--out", default="results/silhouette_demo.json")
     args = ap.parse_args()
     if args.scene == "demo":
         return run_demo_scene(args)
@@ -117,7 +117,7 @@ def main() -> int:
         "radius_err_after": round(rad_err, 4),
     }
     print(json.dumps(result))
-    os.makedirs("artifacts", exist_ok=True)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
     # recovery = the errors DECREASED by an order of magnitude
@@ -213,7 +213,7 @@ def run_demo_scene(args) -> int:
         "radius_err_after": round(rad_err, 4),
     }
     print(json.dumps(result))
-    os.makedirs("artifacts", exist_ok=True)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
     assert pos_err < pos_err0 * 0.25, (pos_err, pos_err0)

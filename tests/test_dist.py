@@ -1,6 +1,6 @@
 """Sharded rendering / training tests on the simulated 8-device CPU mesh.
 
-Exercises the same shard_map/psum code paths as real ICI/DCN
+Exercises the same shard_map/psum code paths as a real multi-card mesh
 (SURVEY.md §4 item 4).
 """
 
@@ -240,7 +240,7 @@ def test_train_step_grads_kernel_vs_oracle_demo_scene():
     """Demo-scene (48, 7) gradient parity across backends on the virtual
     mesh: with lr=1 one bare-SGD step writes (old - grad) into the material
     tables, so comparing the stepped tables compares the full psum'd
-    gradients of the sharded loss — kernel backward vs oracle AD."""
+    gradients of the sharded loss — kernel-forward step vs oracle AD."""
     from tpt.scene import demo_scene
     scene = demo_scene().build()
     cam = CameraConfig()
@@ -271,7 +271,7 @@ def test_train_step_grads_kernel_vs_oracle_demo_scene():
 
 def test_banded_psum_grads_match_single_psum():
     """psum_bands > 1 restructures the gradient all-reduce into per-sub-band
-    collectives (the DCN-overlap configuration); the resulting gradients
+    collectives (the overlap configuration); the resulting gradients
     must match the autodiff-placed single psum."""
     cam, scene, inv_p, inv_v, pos, env = setup()
     cfg = RenderConfig(width=32, height=16, ray_depth=3, spp=1)
@@ -316,7 +316,7 @@ def test_dist_progressive_matches_single_chip():
         width=128, height=16, ray_depth=3, spp=1, n_frames=F, refill=True)
 
     mesh = make_mesh(dp=4, sp=2)
-    render = make_dist_progressive(mesh, cfg, n_frames=F, tile_rows=8)
+    render = make_dist_progressive(mesh, cfg, n_frames=F)
     acc = init_accumulator(16, 128)
     acc, rays = render(acc, scene, table, inv_p, inv_v, cam.focal_length,
                        cam.aperture_diameter, 0)

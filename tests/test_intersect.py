@@ -3,12 +3,14 @@
 import numpy as np
 import jax.numpy as jnp
 
+from tpt.vecmath import vec3
+
 from tpt.ops.intersect import (ray_sphere, ray_cuboid, smallest_positive,
                                sphere_normal, cuboid_normal)
 
 
 def v3(x, y, z):
-    return jnp.array([[x], [y], [z]], jnp.float32)  # batch shape (1,)
+    return vec3([x], [y], [z])  # batch shape (1,)
 
 
 def test_sphere_hit_from_outside():

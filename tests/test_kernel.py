@@ -1,10 +1,12 @@
 """Pallas kernel vs XLA oracle parity (interpreter mode on CPU).
 
 The kernel and oracle share the integrator source, so this validates the
-Pallas lowering: tiling, SMEM scalar access, masked loops, RNG in-kernel.
+kernel plumbing: pixel blocks and padding, table reads, the rolled
+bounce loop, RNG in-kernel.
 """
 
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
 from tpt import camera
@@ -85,3 +87,33 @@ def test_progressive_frames_matches_manual_loop():
     assert int(rays) > 0
     np.testing.assert_allclose(np.asarray(got.image), np.asarray(want.image),
                                rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("width,height,n_rows,row0", [
+    (40, 20, 7, 5),     # several blocks, band inside the frame
+    (33, 9, 9, 0),      # one partial block, whole frame as a band
+    (16, 10, 4, 8),     # band running past the frame: rows clamp
+])
+def test_wrapper_pads_and_bands(width, height, n_rows, row0):
+    """The wrapper pads the flat pixel run to whole blocks and strips the
+    padding; a row band equals the matching rows of the whole frame (rows
+    past the frame repeat its last row) — seeds depend only on absolute
+    pixel coordinates."""
+    from tpt.kernels.trace import BLOCK, pallas_trace
+    cam = CameraConfig(position=(0.0, 0.5, 2.0), look_x=-90.0, look_y=-5.0,
+                       focal_length=8.0, aperture_diameter=0.1)
+    scene = cornell_scene().build()
+    inv_p, inv_v, _ = camera.camera_matrices(cam, width, height)
+    args = (scene, inv_p, inv_v, jnp.int32(3), jnp.float32(8.0),
+            jnp.float32(0.1))
+    shape = dict(width=width, height=height, ray_depth=3, spp=2)
+    whole = pallas_trace(*args, **shape)
+    band = pallas_trace(*args, n_rows=n_rows, row0=row0, **shape)
+    assert (width * n_rows) % BLOCK != 0 or n_rows == height
+    rows = np.minimum(row0 + np.arange(n_rows), height - 1)
+    for name, w, b in zip(whole._fields, whole, band):
+        assert w.shape[-2:] == (height, width), name
+        assert b.shape == w.shape[:-2] + (n_rows, width), name
+        np.testing.assert_array_equal(np.asarray(b),
+                                      np.asarray(w)[..., rows, :],
+                                      err_msg=name)

@@ -1,9 +1,11 @@
-"""Pallas backward kernel vs reverse-mode AD through the XLA oracle.
+"""trace_diff (kernel forward, XLA reverse-mode backward) vs reverse-mode
+AD through the XLA oracle renderer.
 
-trace_diff (kernel forward + kernel backward) composed with the blocked env
-fetch must produce the same loss gradients as jax.grad through the oracle
-renderer — for materials, sphere geometry, cuboid bounds, inverse matrices,
-focal length and aperture.
+trace_diff composed with the blocked env fetch must produce the same loss
+gradients as jax.grad through the oracle renderer — for materials, sphere
+geometry, cuboid bounds, inverse matrices, focal length and aperture — so
+the custom VJP wires every cotangent (camera matrices, lens, band offset,
+int leaves) through the remat backward correctly.
 """
 
 import dataclasses
@@ -87,16 +89,16 @@ def test_grad_kernel_matches_oracle_cornell():
 
 
 def test_grad_kernel_matches_oracle_demo_subset():
-    # a 10-sphere/7-cuboid subset of the demo scene: full 55-primitive
-    # unrolled+vjp'd interpret-mode graphs blow XLA:CPU compile time; the
-    # full-scale configuration runs on TPU via benchmarks/train_bench.py
+    # a 10-sphere/7-cuboid subset of the demo scene keeps the CPU compile
+    # short; the full-scale configuration runs on the card in
+    # chip_smoke.py's train phase
     check_grads(demo_scene(), CameraConfig(), (10, 7))
 
 
 def test_grad_kernel_matches_oracle_spp2():
     # spp > 1 exercises the backward's cross-sample seed chain: sample 1's
     # jitter/lens draws depend on sample 0's final bounce-loop seed, which
-    # the reverse-sweep kernel recomputes rather than stores
+    # the remat backward recomputes rather than stores
     global SPP
     old = SPP
     try:
@@ -114,8 +116,8 @@ def test_grad_kernel_matches_oracle_rr_off():
     inverse-rendering path uses it because RR divides surviving throughput
     by its max channel, making rendered values depend only on albedo
     RATIOS — the albedo scale is then invisible to any pixel loss (r4
-    diagnosis, tpt.integrator.bounce_step docstring).  The kernel backward
-    must match oracle AD in this mode too."""
+    diagnosis, tpt.integrator.bounce_step docstring).  trace_diff's
+    backward must match oracle AD in this mode too."""
     import dataclasses
     from tpt import camera
     from tpt.config import CameraConfig

@@ -1,4 +1,4 @@
-"""tpt — a TPU-native differentiable progressive path tracer.
+"""tpt — a differentiable progressive path tracer for the GPU, in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
 reference OpenGL path tracer BoyBaykiller/OpenTK-PathTracer: progressive

@@ -94,9 +94,8 @@ def _add_common_flags(p):
                         "vs the default clamp policy")
     p.add_argument("--env-bf16", action="store_true",
                    help="half-width environment gather table (bf16 texels "
-                        "bit-packed in f32 words): ~12%% faster frames at "
-                        "~0.06%% mean image error (benchmarks/exp_env_bf16"
-                        ".py), below GL bilinear filter precision but "
+                        "bit-packed in f32 words): texels round to an 8-bit "
+                        "mantissa, below GL bilinear filter precision but "
                         "outside the f32 oracle-parity contract")
     p.add_argument("--cubemap-files", default="",
                    help="6 comma-separated face images (+X,-X,+Y,-Y,+Z,-Z)")
@@ -146,16 +145,17 @@ def cmd_render(args) -> int:
         # Production path: fused chunks of (trace kernel -> one-row-gather
         # env fetch -> donated accumulate) in one device program, with the
         # scan loops specialized to the scene's primitive counts.
-        import jax
         import jax.numpy as jnp
         from .camera import camera_matrices
         from .env import pack_block_table
+        from .kernels.device import use_interpreter
         from .kernels.render import progressive_frames
-        # static counts fully unroll the primitive loops — the fast path on
-        # TPU (Mosaic hoists the SMEM reads), but a compile-time explosion
-        # for the interpreter-mode kernel on CPU, so specialize on TPU only
-        counts = ((int(scene.num_spheres), int(scene.num_cuboids))
-                  if jax.default_backend() == "tpu" else None)
+        # the compiled kernel specializes its primitive loops to the
+        # scene's counts; the interpreted one keeps them dynamic (one
+        # program for any scene).  Off the GPU with no interpreter request
+        # this raises and names --backend oracle.
+        counts = (None if use_interpreter() else
+                  (int(scene.num_spheres), int(scene.num_cuboids)))
         env_table = pack_block_table(
             env_faces, dtype=jnp.bfloat16 if args.env_bf16 else jnp.float32,
             seamless=args.env_seamless)
@@ -168,7 +168,7 @@ def cmd_render(args) -> int:
         def run_chunk(state, n):
             # always launch the same n_frames=chunk program; a partial tail
             # masks the extra steps via n_valid instead of paying a second
-            # Mosaic compile for the remainder size
+            # compile for the remainder size
             state, rays = progressive_frames(
                 state, scene, env_table, inv_p, inv_v,
                 jnp.int32(int(state.frame)), focal, aperture,

@@ -1,4 +1,4 @@
-"""Configuration dataclasses for the TPU path tracer.
+"""Configuration dataclasses for the path tracer.
 
 Defaults and valid ranges mirror the reference app's hard-coded constants and
 ImGui slider ranges:
@@ -49,9 +49,9 @@ class RenderConfig:
     ray_depth: int = 13
     spp: int = 1
     # Static (n_spheres, n_cuboids): bakes the primitive-loop trip counts into
-    # the compiled program so the Pallas kernel fully unrolls its scan/gather
-    # (~1.5x throughput).  None keeps the counts dynamic (one compilation for
-    # any scene; needed when objects are added/removed without recompiling).
+    # the compiled program.  None keeps the counts dynamic (one compilation
+    # for any scene; needed when objects are added/removed without
+    # recompiling).
     static_counts: Tuple[int, int] | None = None
     # Sub-pixel jitter arithmetic: "corner" = the reference's compute-shader
     # convention, "center" = its fragment-shader convention — the shipped

@@ -1,7 +1,7 @@
 """Differentiable rendering: fast Pallas forward + oracle-replay backward.
 
 The Pallas kernel and the XLA oracle compute the *same function* (shared
-integrator source; bit-equal on TPU — see tests/test_kernel.py), so a
+integrator source; see tests/test_kernel.py), so a
 custom_vjp pairing the kernel's forward with reverse-mode AD through the
 oracle is mathematically consistent: you get kernel-speed primals and exact
 oracle gradients.  The backward replays the trace with per-bounce
@@ -65,7 +65,7 @@ def _oracle_image(diff: DiffInputs, inv_proj, inv_view, frame,
     cam = camera_params(inv_proj, inv_view, diff.focal_length,
                         diff.aperture_diameter)
     res = trace_paths(compose_trace_fn(scan, gather), cam, px, py,
-                      width, height, frame, ray_depth, spp, remat=True,
+                      width, height, frame, ray_depth, spp, loop="remat",
                       russian_roulette=rr)
     mean = apply_environment(res, diff.env_faces, spp)
     return jnp.moveaxis(mean, 0, -1)

@@ -41,8 +41,8 @@ def constant_environment(color, size: int = 1) -> jnp.ndarray:
 def cubemap_face_uv_planar(dx, dy, dz):
     """GL cubemap face selection (OpenGL 4.6 spec table 8.19) on planar
     (channel-separate) direction components — no [..., 3] packing, so callers
-    holding channel-first data avoid the minor-dim-3 transpose, which is
-    catastrophically slow on TPU (measured ~31 ms for a 1080p field).
+    holding channel-first data avoid a minor-dim-3 transpose of the whole
+    field.
 
     Returns (face [...] i32, s [...], t [...]) with s, t in [0, 1]."""
     ax, ay, az = jnp.abs(dx), jnp.abs(dy), jnp.abs(dz)
@@ -114,8 +114,7 @@ def pad_faces_for_sampling(faces, seamless: bool = False):
     """Pad faces to f32[6, S+2, S+2, 3] with a one-texel ring.
 
     With the ring, a bilinear tap becomes a single contiguous (2, 2)
-    block fetch — one gather per pixel instead of four (TPU gathers cost
-    per *row*, so this is ~4x cheaper).
+    block fetch — one gather per pixel instead of four.
 
     ``seamless=False`` (default): edge-replicate — exactly equal to four
     clamp-to-edge taps, the documented clamp seam policy the oracle
@@ -177,15 +176,13 @@ def sample_environment_planar(faces, direction3, seamless: bool = False):
     Returns f32[3, *batch].  Mathematically identical to
     :func:`sample_environment`, but every intermediate keeps the batch as the
     minor axes (one gather per channel, indices shared), so a channel-first
-    caller — the render pipeline carries f32[3, H, W] fields — never pays the
-    minor-dim-3 transpose XLA:TPU lowers at ~1 GB/s."""
+    caller — the render pipeline carries f32[3, H, W] fields — never pays a
+    minor-dim-3 transpose."""
     faces = jnp.asarray(faces, jnp.float32)
     size = faces.shape[1]
     pad = size + 2
     # flat table + scalar-output takes: every intermediate is a full-size
-    # planar field or a flat vector, the shapes XLA:TPU gathers at HBM speed.
-    # A (…, 2, 2, 3)-block gather materializes minor-dim-padded layouts and
-    # measures ~5 orders of magnitude slower here.
+    # planar field or a flat vector, with no minor-dim-3 layouts.
     table = pad_faces_for_sampling(faces, seamless=seamless).reshape(-1)
 
     face, s, t = cubemap_face_uv_planar(direction3[0], direction3[1],
@@ -219,21 +216,18 @@ def pack_block_table(faces, dtype=jnp.float32,
                      seamless: bool = False) -> jnp.ndarray:
     """Precompute the render-path environment table: f32[6*(S+2)^2, 12].
 
-    ``dtype=jnp.bfloat16`` halves the row to 24 bytes — ONE 32-byte gather
-    quantum instead of two, which halves the per-frame fetch cost at the
-    measured XLA:TPU row-gather floor (~3.3 vs 6.2 ns/row,
-    benchmarks/exp_gather_shapes.py).  Opt-in: env texels round to 8-bit
-    mantissa (~0.4% relative), below the reference's own GL bilinear
+    ``dtype=jnp.bfloat16`` halves the row to 24 bytes — ONE 32-byte memory
+    sector instead of two per fetched row.  Opt-in: env texels round to
+    8-bit mantissa (~0.4% relative), below the reference's own GL bilinear
     filtering precision but outside the f32 oracle-parity contract
-    (benchmarks/exp_env_bf16.py quantifies both).
+    (tests/test_env.py bounds the error).
 
     Row ``(face*(S+2) + y0)*(S+2) + x0`` holds the full bilinear footprint of
     the tap whose top-left padded texel is (y0, x0):
     ``[t00.rgb, t01.rgb, t10.rgb, t11.rgb]`` — so the per-pixel fetch of
     :func:`sample_environment_blocked` is ONE row gather instead of twelve
-    scalar gathers.  XLA:TPU gathers pay per *row*, not per byte (measured
-    12 ms vs 207 ms per 1080p frame, benchmarks/exp_gather2.py), which makes
-    this the production fetch path; the planar sampler remains the oracle.
+    scalar gathers, which makes this the production fetch path; the planar
+    sampler remains the oracle.
 
     Rebuilt only when the environment changes (atmosphere recompute / file
     load) — the reference's analogue is re-uploading the cubemap texture.
@@ -251,9 +245,7 @@ def pack_block_table(faces, dtype=jnp.float32,
     blocks = blocks.reshape(6 * pad * pad, 12)
     if dtype == jnp.bfloat16:
         # BIT-PACK bf16 pairs into f32 words ([N, 6] f32 = 24-byte rows):
-        # a native bf16[N, 12] gather output gets a (2, 1)-packed padded
-        # layout on TPU (~10x memory expansion, measured) — f32 words keep
-        # the narrow row without the pathological layout
+        # the gather then moves whole 32-bit words of a narrow row
         u = jax.lax.bitcast_convert_type(
             blocks.astype(jnp.bfloat16), jnp.uint16).astype(jnp.uint32)
         words = u[:, 0::2] | (u[:, 1::2] << 16)

@@ -22,14 +22,14 @@ behavior in these spots):
   * normalize() of degenerate vectors is floored at 1e-20 squared length.
 
 Everything is shape-polymorphic over the pixel batch: the oracle calls it on
-[H, W] grids, the Pallas kernel on VPU-aligned tiles, with scene access
-injected via ``scan_fn``/``gather_fn``.
+[H, W] grids, the Pallas kernel on one block of pixels, with scene access
+injected via ``scan_fn``/``gather_fn``.  Vectors are :class:`tpt.vecmath.Vec3`
+component triples, so every value is a plain per-lane array.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
 from typing import Callable, NamedTuple, Tuple
 
 import numpy as np
@@ -38,7 +38,8 @@ import jax.numpy as jnp
 
 from . import rng
 from .config import MAX_SPHERES, KERNEL_EPSILON
-from .vecmath import bcast3, dot3, normalize3, where3, max3, mix, mix3
+from .vecmath import (Vec3, dot3, max3, mix, mix3, normalize3, splat3,
+                      stack3, v3map, where3)
 from .ops.intersect import (FLOAT_MAX, ray_sphere, ray_cuboid,
                             smallest_positive, sphere_normal, cuboid_normal)
 from .ops.sampling import cosine_sample_hemisphere, uniform_sample_unit_circle
@@ -50,17 +51,20 @@ EPS = np.float32(KERNEL_EPSILON)
 
 class Winner(NamedTuple):
     """Per-lane attributes of the closest-hit primitive."""
-    material: jax.Array      # f32[16, *batch] (tpt.materials layout)
-    sphere_center: jax.Array  # f32[3, *batch]
+    material: Tuple[jax.Array, ...]  # MAT_LANES x f32[*batch] (tpt.materials)
+    sphere_center: Vec3
     sphere_radius: jax.Array  # f32[*batch]
-    cuboid_min: jax.Array     # f32[3, *batch]
-    cuboid_max: jax.Array     # f32[3, *batch]
+    cuboid_min: Vec3
+    cuboid_max: Vec3
     is_sphere: jax.Array      # bool[*batch]
 
 
+MAT_LANES = 14  # material lanes 0..13 (14, 15 are std140 padding)
+
+
 class CameraParams(NamedTuple):
-    """Camera inputs as plain scalars — Mosaic-friendly (no small-vector
-    construction inside kernels; scalars broadcast to lane tiles natively).
+    """Camera inputs as plain scalars (no small-vector construction inside
+    kernels; scalars broadcast to the pixel block).
 
     ``ip??`` are inverse-projection elements used by the eye-ray transform;
     ``right``/``up``/``backward``/``eye`` are the inverse-view columns."""
@@ -93,12 +97,6 @@ def camera_params(inv_proj, inv_view, focal_length, aperture_diameter) -> Camera
     )
 
 
-def _splat(components, batch) -> jax.Array:
-    """Broadcast 3 scalars to f32[3, *batch] without forming tiny vectors."""
-    return jnp.stack([jnp.broadcast_to(jnp.asarray(c, jnp.float32), batch)
-                      for c in components])
-
-
 # scan_fn(origin, direction) -> (found bool[B], idx i32[B], t f32[B], inside bool[B])
 ScanFn = Callable[[jax.Array, jax.Array], Tuple[jax.Array, jax.Array, jax.Array, jax.Array]]
 # gather_fn(idx) -> Winner
@@ -127,14 +125,13 @@ def make_scan_fn(get_sphere, get_cuboid, num_spheres, num_cuboids) -> ScanFn:
 
     ``get_sphere(i) -> (cx, cy, cz, r)`` and
     ``get_cuboid(i) -> (mnx, mny, mnz, mxx, mxy, mxz)`` return scalars;
-    the oracle reads jnp arrays, the Pallas kernel reads SMEM.
+    the oracle reads jnp arrays, the Pallas kernel reads its table refs.
     """
 
     def scan(origin, direction):
-        batch = origin.shape[1:]
+        batch = origin.x.shape
         best_t = jnp.full(batch, FLOAT_MAX, jnp.float32)
         best_idx = jnp.full(batch, -1, jnp.int32)
-        # loop-carried flags are i32, not bool: Mosaic has no i1-vector selects
         best_inside = jnp.zeros(batch, jnp.int32)
 
         def consider(carry, t1, t2, ok, idx):
@@ -148,14 +145,14 @@ def make_scan_fn(get_sphere, get_cuboid, num_spheres, num_cuboids) -> ScanFn:
 
         def sphere_body(i, carry):
             cx, cy, cz, r = get_sphere(i)
-            center = _splat((cx, cy, cz), batch)
+            center = splat3((cx, cy, cz), batch)
             t1, t2, ok = ray_sphere(origin, direction, center, r)
             return consider(carry, t1, t2, ok, i)
 
         def cuboid_body(i, carry):
             mnx, mny, mnz, mxx, mxy, mxz = get_cuboid(i)
-            mn = _splat((mnx, mny, mnz), batch)
-            mx = _splat((mxx, mxy, mxz), batch)
+            mn = splat3((mnx, mny, mnz), batch)
+            mx = splat3((mxx, mxy, mxz), batch)
             t1, t2, ok = ray_cuboid(origin, direction, mn, mx)
             return consider(carry, t1, t2, ok, MAX_SPHERES + i)
 
@@ -177,17 +174,19 @@ def make_xla_gather_fn(scene) -> GatherFn:
         is_sphere = (idx >= 0) & (idx < MAX_SPHERES)
         sidx = jnp.clip(idx, 0, MAX_SPHERES - 1)
         cidx = jnp.clip(idx - MAX_SPHERES, 0, scene.cuboid_min.shape[0] - 1)
-        # [B, k] gathers, moved to leading-component layout
-        smat = jnp.moveaxis(scene.sphere_material[sidx], -1, 0)
-        cmat = jnp.moveaxis(scene.cuboid_material[cidx], -1, 0)
-        mat = jnp.where(is_sphere[None], smat, cmat)
-        spr = jnp.moveaxis(scene.sphere_pos_radius[sidx], -1, 0)
+        smat = scene.sphere_material[sidx]        # [*batch, 16]
+        cmat = scene.cuboid_material[cidx]
+        mat = tuple(jnp.where(is_sphere, smat[..., k], cmat[..., k])
+                    for k in range(MAT_LANES))
+        spr = scene.sphere_pos_radius[sidx]
+        cmin = scene.cuboid_min[cidx]
+        cmax = scene.cuboid_max[cidx]
         return Winner(
             material=mat,
-            sphere_center=spr[:3],
-            sphere_radius=spr[3],
-            cuboid_min=jnp.moveaxis(scene.cuboid_min[cidx], -1, 0),
-            cuboid_max=jnp.moveaxis(scene.cuboid_max[cidx], -1, 0),
+            sphere_center=Vec3(spr[..., 0], spr[..., 1], spr[..., 2]),
+            sphere_radius=spr[..., 3],
+            cuboid_min=Vec3(cmin[..., 0], cmin[..., 1], cmin[..., 2]),
+            cuboid_max=Vec3(cmax[..., 0], cmax[..., 1], cmax[..., 2]),
             is_sphere=is_sphere,
         )
 
@@ -214,166 +213,17 @@ def make_scene_scan_fn(scene, counts: Tuple[int, int] | None = None) -> ScanFn:
     return make_scan_fn(get_sphere, get_cuboid, ns, nc)
 
 
-ATTR_ROWS = 128   # one-hot lane width; static n_spheres + n_cuboids must fit
-ATTR_COLS = 24    # 0:4 sphere geom | 4:10 cuboid geom | 10:24 material
-
-
-def build_attr_table(scene, counts: Tuple[int, int]):
-    """Pack the differentiable scene parameters into the unified winner-
-    attribute table f32[ATTR_ROWS, ATTR_COLS] consumed by the one-hot trace:
-    row i < ns = sphere i, row ns + j = cuboid j; zero-padded.
-
-    Pure XLA and differentiable — the gradient of a render w.r.t. the table
-    unpacks to scene-leaf cotangents by transposing this construction."""
-    ns, nc = counts
-    if ns + nc > ATTR_ROWS:
-        raise ValueError(f"one-hot trace supports <= {ATTR_ROWS} primitives, "
-                         f"got {ns}+{nc}")
-    sph = jnp.concatenate([
-        scene.sphere_pos_radius[:ns],                      # 0:4
-        jnp.zeros((ns, 6), jnp.float32),                   # 4:10
-        scene.sphere_material[:ns, :14],                   # 10:24
-    ], axis=1)
-    cub = jnp.concatenate([
-        jnp.zeros((nc, 4), jnp.float32),
-        scene.cuboid_min[:nc], scene.cuboid_max[:nc],
-        scene.cuboid_material[:nc, :14],
-    ], axis=1)
-    table = jnp.concatenate([sph, cub], axis=0)
-    return jnp.pad(table, ((0, ATTR_ROWS - ns - nc), (0, 0)))
-
-
-@jax.custom_vjp
-def _onehot_cols(table_t, oh):
-    """attrs_t[k, *batch] = sum_r table_t[k, r] * oh[*batch, r] — the MXU
-    gather, ATTRIBUTE-MAJOR.
-
-    The attribute-major orientation is the layout-critical choice on TPU:
-    every attribute channel attrs_t[k] comes out as a native (sublane, lane)
-    tile slice along the LEADING axis — free to consume — where the r3
-    row-major form attrs[..., k] lane-sliced a minor-dim-24 array (a
-    cross-lane relayout per channel, ~24 per bounce: the dominant cost of
-    the r3 backward's sweeps).  The hand-written transpose is likewise ONE
-    [K, B] x [B, R] MXU contraction (the r3 form looped 8 small serialized
-    matmuls per bounce), and the d_table_t accumulator [K, 128] has a
-    native 128-lane minor dim.
-
-    Precision HIGHEST: the default f32 matmul truncates operands to bf16 on
-    the MXU; one-hot operands would round the gathered winner attributes and
-    break the bit-identical-primal invariant of make_onehot_trace_fn."""
-    nb = oh.ndim - 1
-    return jax.lax.dot_general(table_t, oh, (((1,), (nb,)), ((), ())),
-                               preferred_element_type=jnp.float32,
-                               precision=jax.lax.Precision.HIGHEST)
-
-
-def _onehot_cols_fwd(table_t, oh):
-    return _onehot_cols(table_t, oh), oh
-
-
-def _onehot_cols_bwd(oh, g):
-    # g: [K, *batch]; d_table_t[k, r] = sum_b g[k, b] * oh[b, r] — one MXU
-    # contraction over the flattened batch
-    b = int(np.prod(oh.shape[:-1]))
-    oh2 = oh.reshape(b, oh.shape[-1])           # [B, R]
-    g2 = g.reshape(g.shape[0], b)               # [K, B]
-    d = jax.lax.dot_general(g2, oh2, (((1,), (0,)), ((), ())),
-                            preferred_element_type=jnp.float32,
-                            precision=jax.lax.Precision.HIGHEST)
-    return d, jnp.zeros_like(oh)
-
-
-_onehot_cols.defvjp(_onehot_cols_fwd, _onehot_cols_bwd)
-
-
-def onehot_hit_trace(table_t, num_spheres: int, origin, direction, idx, inside):
-    """Differentiable winner evaluation from a PRECOMPUTED (detached) hit
-    record: MXU one-hot gather for the winner attributes and the winning
-    intersection distance *recomputed* from the gathered geometry.
-
-    ``table_t``: the TRANSPOSED attr table f32[ATTR_COLS, ATTR_ROWS]
-    (attribute-major — see _onehot_cols for why this layout is the fast
-    one); ``idx``: the closest-hit fold's winner index (i32; -1 = miss, so
-    found == idx >= 0 — the fold initializes idx to -1 and writes it on
-    every accepted candidate); ``inside``: the fold's inside flag.
-    Splitting the fold out lets the backward kernel run it ONCE per bounce
-    in its forward sweep, store the 1-int hit record, and replay both
-    sweeps without re-folding all primitives (the r3 backward re-ran the
-    fold under jax.vjp in every reverse step).
-
-    Primal values are bit-identical to compose_trace_fn(scan, gather): the
-    recomputed t applies the same intersector to the same winner values."""
-    found = idx >= 0
-    is_sphere = found & (idx < MAX_SPHERES)
-    row = jnp.where(idx < 0, -1,
-                    jnp.where(is_sphere, idx, idx - MAX_SPHERES + num_spheres))
-    oh = (row[..., None] == jax.lax.broadcasted_iota(
-        jnp.int32, row.shape + (ATTR_ROWS,), row.ndim)).astype(jnp.float32)
-    attrs_t = _onehot_cols(table_t, jax.lax.stop_gradient(oh))
-
-    # attribute channels are leading-axis slices — native tiles, no
-    # cross-lane extraction
-    center = attrs_t[0:3]
-    radius = attrs_t[3]
-    cmin = attrs_t[4:7]
-    cmax = attrs_t[7:10]
-    mat = attrs_t[10:24]
-
-    # Recompute the winning t differentiably (one intersector per lane).
-    # Gradient hygiene: axis-parallel rays give ray_cuboid infinite
-    # partials (1/d); neutralize the direction on lanes whose winner is
-    # not a cuboid so 0-cotangent x inf can't NaN the transpose.
-    use_cub = found & ~is_sphere
-    dir_c = where3(use_cub, direction, direction * 0.0 + 1.0)
-    t1s, t2s, _oks = ray_sphere(origin, direction, center,
-                                jnp.maximum(radius, EPS))
-    t1c, t2c, _okc = ray_cuboid(origin, dir_c, cmin, cmax)
-    t1 = jnp.where(is_sphere, t1s, t1c)
-    t2 = jnp.where(is_sphere, t2s, t2c)
-    t = smallest_positive(t1, t2)
-
-    winner = Winner(material=mat, sphere_center=center,
-                    sphere_radius=radius, cuboid_min=cmin,
-                    cuboid_max=cmax, is_sphere=is_sphere)
-    return found, t, inside, winner
-
-
-def make_onehot_trace_fn(scan_fn: ScanFn, table, num_spheres: int) -> TraceFn:
-    """Differentiable closest-hit trace: detached scan fold for the winner
-    index, then :func:`onehot_hit_trace` for the attributes and t.
-
-    This is the TPU-native formulation of differentiable closest-hit: the
-    discrete argmin is detached (standard detached-decision estimator), the
-    continuous quantities (t, normals via gathered geometry, material
-    values) flow through the one-hot matmul — so the transpose accumulates
-    parameter cotangents with MXU contractions instead of 55 x 24 masked
-    lane reductions.
-
-    ``table``: build_attr_table output; ``num_spheres``: static count used
-    in the fold's index encoding."""
-
-    table_t = table.T  # attribute-major (one cheap XLA transpose per trace)
-
-    def trace(origin, direction):
-        _found, idx, _t_fold, inside = scan_fn(
-            jax.lax.stop_gradient(origin), jax.lax.stop_gradient(direction))
-        return onehot_hit_trace(table_t, num_spheres, origin, direction,
-                                idx, inside)
-
-    return trace
-
-
 @dataclasses.dataclass(frozen=True)
 class PathState:
     """Per-lane bounce-loop carry."""
-    origin: jax.Array       # f32[3, B]
-    direction: jax.Array    # f32[3, B]
-    throughput: jax.Array   # f32[3, B]
-    radiance: jax.Array     # f32[3, B]   emission picked up so far
+    origin: Vec3
+    direction: Vec3
+    throughput: Vec3
+    radiance: Vec3          # emission picked up so far
     seed: jax.Array         # u32[B]
-    alive: jax.Array        # i32[B] (0/1; i32 because Mosaic lacks i1 selects)
-    miss_dir: jax.Array     # f32[3, B]   direction at escape (0 if none yet)
-    miss_thr: jax.Array     # f32[3, B]   throughput at escape (0 if none)
+    alive: jax.Array        # i32[B] (0/1)
+    miss_dir: Vec3          # direction at escape (0 if none yet)
+    miss_thr: Vec3          # throughput at escape (0 if none)
     ray_count: jax.Array    # i32[B]      traced segments (for Mrays/s)
 
 
@@ -407,11 +257,11 @@ def bounce_step(state: PathState, trace_fn: TraceFn,
     miss = alive & ~found
 
     mat = w.material
-    albedo = mat[0:3]
+    albedo = Vec3(*mat[0:3])
     spec0 = mat[3]
-    emissive = mat[4:7]
+    emissive = Vec3(*mat[4:7])
     spec_rough = mat[7]
-    absorb = mat[8:11]
+    absorb = Vec3(*mat[8:11])
     refr0 = mat[11]
     refr_rough = mat[12]
     ior = mat[13]
@@ -424,16 +274,16 @@ def bounce_step(state: PathState, trace_fn: TraceFn,
     t_safe = jnp.where(found, t, 1.0)            # miss lanes carry FLOAT_MAX
     ior_safe = jnp.maximum(ior, EPS)             # padded materials carry 0
 
-    hp = o + d * bcast3(t_safe)
+    hp = o + d * t_safe
     n_raw = where3(w.is_sphere,
                    sphere_normal(w.sphere_center,
-                                 bcast3(jnp.maximum(w.sphere_radius, EPS)), hp),
+                                 jnp.maximum(w.sphere_radius, EPS), hp),
                    cuboid_normal(w.cuboid_min, w.cuboid_max, hp))
     n = where3(inside, -n_raw, n_raw)
 
     # Beer's law when exiting a medium (compute.glsl:145-149)
     t_beer = jnp.where(hit & inside, t_safe, 0.0)
-    thr = where3(hit & inside, thr * jnp.exp(-absorb * bcast3(t_beer)), thr)
+    thr = where3(hit & inside, thr * v3map(jnp.exp, -absorb * t_beer), thr)
 
     # --- BSDF lobe probabilities (compute.glsl:184-195) ---
     n1 = jnp.where(inside, ior_safe, 1.0)
@@ -457,17 +307,17 @@ def bounce_step(state: PathState, trace_fn: TraceFn,
 
     # --- lobe directions ---
     refl_pure = reflect3(d, n)
-    refl_dir = normalize3(mix3(refl_pure, diffuse_ray, bcast3(spec_rough * spec_rough)),
+    refl_dir = normalize3(mix3(refl_pure, diffuse_ray, spec_rough * spec_rough),
                           eps=np.float32(1e-20))
     eta = jnp.where(inside, ior_safe, 1.0 / ior_safe)
     refr_raw, _tir = refract3(d, n, eta)
     hemi_neg = cosine_sample_hemisphere(-n, r_z2, r_a2)
-    refr_mixed = mix3(refr_raw, hemi_neg, bcast3(refr_rough * refr_rough))
+    refr_mixed = mix3(refr_raw, hemi_neg, refr_rough * refr_rough)
     refr_len2 = dot3(refr_mixed, refr_mixed)
     # TIR with ~zero roughness degenerates to the zero vector (shader UB);
     # defined policy: mirror reflection.
     refr_dir = where3(refr_len2 > 1e-12,
-                      refr_mixed / bcast3(jnp.sqrt(jnp.maximum(refr_len2, np.float32(1e-12)))),
+                      refr_mixed / jnp.sqrt(jnp.maximum(refr_len2, np.float32(1e-12))),
                       refl_pure)
 
     new_d = where3(take_spec, refl_dir, where3(take_refr, refr_dir, diffuse_ray))
@@ -478,8 +328,8 @@ def bounce_step(state: PathState, trace_fn: TraceFn,
 
     # --- throughput / radiance updates (compute.glsl:156-164) ---
     rad = rad + where3(hit, emissive * thr, jnp.float32(0.0))
-    thr_after = jnp.where((hit & ~take_refr)[None], thr * albedo, thr)
-    thr_after = jnp.where(hit[None], thr_after / bcast3(p), thr_after)
+    thr_after = where3(hit & ~take_refr, thr * albedo, thr)
+    thr_after = where3(hit, thr_after / p, thr_after)
 
     # --- Russian roulette (compute.glsl:166-173) ---
     p_max = max3(thr_after)
@@ -488,8 +338,7 @@ def bounce_step(state: PathState, trace_fn: TraceFn,
         die = rr_roll > p_max
         survive = hit & ~die
         p_max_safe = jnp.where(survive, p_max, 1.0)
-        thr_after = jnp.where(survive[None],
-                              thr_after / bcast3(p_max_safe), thr_after)
+        thr_after = where3(survive, thr_after / p_max_safe, thr_after)
     else:
         die = jnp.zeros_like(hit)
         survive = hit
@@ -527,15 +376,13 @@ def primary_ray(cam: CameraParams, fpx, fpy, width: int, height: int,
     """Jittered thin-lens eye ray (compute.glsl:113-121,352-357).
 
     ``draws``: sample_draws floats.  Differentiable w.r.t. every CameraParams
-    entry — the backward kernel vjp's this to recover camera/lens cotangents.
-    Float operation order is exactly trace_paths's, so both linearize at the
-    same primal."""
+    entry (camera/lens cotangents of the rendered image flow through it)."""
     jx, jy, r_angle, r_radius = draws
     batch = fpx.shape
-    right = _splat(cam.right, batch)
-    up = _splat(cam.up, batch)
-    backward = _splat(cam.backward, batch)
-    eye = _splat(cam.eye, batch)
+    right = splat3(cam.right, batch)
+    up = splat3(cam.up, batch)
+    backward = splat3(cam.backward, batch)
+    eye = splat3(cam.eye, batch)
 
     if jitter == "corner":
         u = (fpx + jx) / width * 2.0 - 1.0
@@ -547,17 +394,17 @@ def primary_ray(cam: CameraParams, fpx, fpy, width: int, height: int,
     # eye ray (compute.glsl:352-357): invP @ (u, v, -1, 0), zw := (-1, 0)
     ex = cam.ip00 * u + cam.ip01 * v - cam.ip02
     ey = cam.ip10 * u + cam.ip11 * v - cam.ip12
-    d = normalize3(right * bcast3(ex) + up * bcast3(ey) - backward)
+    d = normalize3(right * ex + up * ey - backward)
     o = eye  # ViewPos == inv_view translation (src/MainWindow.cs:132)
 
     # thin-lens DoF (compute.glsl:117-121)
-    focal_point = o + d * bcast3(jnp.broadcast_to(
-        jnp.asarray(cam.focal_length, jnp.float32), batch))
+    focal_point = o + d * jnp.broadcast_to(
+        jnp.asarray(cam.focal_length, jnp.float32), batch)
     cx, cy = uniform_sample_unit_circle(r_angle, r_radius)
     ap = jnp.asarray(cam.aperture_diameter, jnp.float32)
     off_x = ap * 0.5 * cx
     off_y = ap * 0.5 * cy
-    o = eye + right * bcast3(off_x) + up * bcast3(off_y)
+    o = eye + right * off_x + up * off_y
     d = normalize3(focal_point - o)
     return o, d
 
@@ -570,14 +417,54 @@ class TraceResult(NamedTuple):
     seed: jax.Array        # u32[B]           final RNG state
 
 
-def trace_paths(trace_fn: TraceFn, cam: CameraParams,
-                px, py, width: int, height: int, frame,
-                ray_depth: int, spp: int, remat: bool = False,
-                jitter: str = "corner",
-                russian_roulette: bool = True) -> TraceResult:
+class SampleResult(NamedTuple):
+    """:func:`trace_samples` output: a TraceResult whose vectors are Vec3
+    values (one per sample for the miss fields) instead of stacked arrays."""
+    radiance: Vec3
+    miss_dir: Tuple[Vec3, ...]
+    miss_thr: Tuple[Vec3, ...]
+    ray_count: jax.Array
+    seed: jax.Array
+
+    def stacked(self) -> TraceResult:
+        return TraceResult(
+            radiance=stack3(self.radiance),
+            miss_dir=jnp.stack([stack3(v) for v in self.miss_dir]),
+            miss_thr=jnp.stack([stack3(v) for v in self.miss_thr]),
+            ray_count=self.ray_count, seed=self.seed)
+
+
+def any_lane(mask):
+    """Whether any lane of the batch is set: one predicate for the whole
+    batch (a max, which every backend reduces, rather than a boolean or)."""
+    return jnp.max(mask.astype(jnp.int32)) > 0
+
+
+BOUNCE_LOOPS = ("skip", "remat", "rolled")
+
+
+def trace_samples(trace_fn: TraceFn, cam: CameraParams,
+                  px, py, width: int, height: int, frame,
+                  ray_depth: int, spp: int, *, loop: str = "skip",
+                  jitter: str = "corner",
+                  russian_roulette: bool = True) -> SampleResult:
     """Full per-pixel sampling loop (compute.glsl:101-130), environment
     fetch deferred.  ``px``/``py`` are integer pixel coords (GL convention:
     y bottom-up) of any batch shape.
+
+    ``loop`` picks how the bounce loop runs; all three give the same
+    result, because a bounce on a batch whose lanes are all dead is the
+    identity:
+      * ``"skip"`` — unrolled; after the first bounce, a ``lax.cond``
+        skips whole bounces once every lane is dead (Russian roulette keeps
+        E[bounces] far below ray_depth; the reference relies on per-thread
+        ``break`` the same way).  The oracle's default.
+      * ``"remat"`` — unrolled, every bounce under ``jax.checkpoint`` and
+        none skipped: reverse mode stores only the inter-bounce carry and
+        recomputes each bounce's internals in the backward sweep.
+      * ``"rolled"`` — one ``while_loop`` over bounces that exits once the
+        whole batch is dead: the GPU kernel's form, one loop body in the
+        program whatever the depth (not reverse-differentiable).
 
     ``jitter`` selects the reference's sub-pixel jitter arithmetic:
       * ``"corner"`` — the compute variant: ndc = (p + rand01)/size*2-1
@@ -590,27 +477,24 @@ def trace_paths(trace_fn: TraceFn, cam: CameraParams,
     both integrate uniformly over the pixel footprint with the same RNG
     draws; they differ only in floating-point rounding order (ulp-level NDC
     deltas, quantified by tests/test_jitter.py).  "corner" is the default
-    everywhere; "center" reproduces the shipped app's exact rounding.
-
-    The in-kernel Pallas backward (tpt.kernels.trace_grad) does NOT call
-    this function — it re-runs the same per-sample structure with its own
-    carry-storing loops, built from the shared sample_draws / primary_ray /
-    bounce_step pieces, so both paths linearize at the same primal."""
+    everywhere; "center" reproduces the shipped app's exact rounding."""
     if jitter not in ("corner", "center"):
         raise ValueError(f"jitter must be 'corner' or 'center', got {jitter!r}")
-    batch = px.shape
+    if loop not in BOUNCE_LOOPS:
+        raise ValueError(f"loop must be one of {BOUNCE_LOOPS}, got {loop!r}")
     seed = rng.pixel_seed(px, py, frame)
     fpx = jnp.asarray(px, jnp.float32)
     fpy = jnp.asarray(py, jnp.float32)
 
-    # Derive loop-carry initializers from lane data rather than constant
-    # splats: Mosaic cannot relayout replicated->concrete across loop carries.
     zero_lane = fpx * 0.0
-    zero_v3 = jnp.stack([zero_lane, zero_lane, zero_lane])
+    zero_v3 = Vec3(zero_lane, zero_lane, zero_lane)
     rad_total = zero_v3
     ray_count = jnp.asarray(px, jnp.int32) * 0
     miss_dirs = []
     miss_thrs = []
+
+    def bounce(st):
+        return bounce_step(st, trace_fn, russian_roulette)
 
     for _ in range(spp):
         draws, seed = sample_draws(seed)
@@ -626,29 +510,22 @@ def trace_paths(trace_fn: TraceFn, cam: CameraParams,
             miss_thr=zero_v3,
             ray_count=ray_count,
         )
-        # Unrolled bounce loop: trip count is static (<= 50) and unrolling
-        # sidesteps Mosaic's layout unification on large loop carries.
-        # After the first bounce, skip whole bounces once every lane in the
-        # batch is dead (Russian roulette keeps E[bounces] far below
-        # ray_depth; the reference relies on per-thread `break` the same
-        # way).  cond(False) is the identity, so results are unchanged.
-        def live_bounce(st):
-            return jax.lax.cond(
-                jnp.any(st.alive != 0),
-                lambda s: bounce_step(s, trace_fn, russian_roulette),
-                lambda s: s, st)
-
-        if remat:
-            # reverse-mode memory: store only the inter-bounce carry and
-            # recompute each bounce's internals in the backward sweep
-            step = jax.checkpoint(
-                lambda s: bounce_step(s, trace_fn, russian_roulette))
+        if loop == "remat":
+            step = jax.checkpoint(bounce)
             for _bounce in range(ray_depth):
                 state = step(state)
+        elif loop == "rolled":
+            def live(carry):
+                b, st = carry
+                return (b < ray_depth) & any_lane(st.alive != 0)
+
+            _, state = jax.lax.while_loop(
+                live, lambda c: (c[0] + 1, bounce(c[1])),
+                (jnp.int32(0), state))
         else:
             for _bounce in range(ray_depth):
-                state = bounce_step(state, trace_fn, russian_roulette) \
-                    if _bounce == 0 else live_bounce(state)
+                state = bounce(state) if _bounce == 0 else jax.lax.cond(
+                    any_lane(state.alive != 0), bounce, lambda st: st, state)
 
         rad_total = rad_total + state.radiance
         miss_dirs.append(state.miss_dir)
@@ -656,13 +533,21 @@ def trace_paths(trace_fn: TraceFn, cam: CameraParams,
         seed = state.seed
         ray_count = state.ray_count
 
-    return TraceResult(
-        radiance=rad_total,
-        miss_dir=jnp.stack(miss_dirs),
-        miss_thr=jnp.stack(miss_thrs),
-        ray_count=ray_count,
-        seed=seed,
-    )
+    return SampleResult(radiance=rad_total, miss_dir=tuple(miss_dirs),
+                        miss_thr=tuple(miss_thrs), ray_count=ray_count,
+                        seed=seed)
+
+
+def trace_paths(trace_fn: TraceFn, cam: CameraParams,
+                px, py, width: int, height: int, frame,
+                ray_depth: int, spp: int, loop: str = "skip",
+                jitter: str = "corner",
+                russian_roulette: bool = True) -> TraceResult:
+    """:func:`trace_samples` with stacked outputs (the module-boundary
+    TraceResult layout)."""
+    return trace_samples(trace_fn, cam, px, py, width, height, frame,
+                         ray_depth, spp, loop=loop, jitter=jitter,
+                         russian_roulette=russian_roulette).stacked()
 
 
 class ProgressiveTraceResult(NamedTuple):
@@ -673,6 +558,21 @@ class ProgressiveTraceResult(NamedTuple):
     seed: jax.Array        # u32[B]         final RNG state (last started sample)
 
 
+def init_progressive_state(px):
+    """Empty refill-loop carry for :func:`progressive_iteration`: every lane
+    dead, so the first iteration starts each lane's first sample."""
+    zero_lane = jnp.asarray(px, jnp.float32) * 0.0
+    zero_i = jnp.asarray(px, jnp.int32) * 0
+    zero_v3 = Vec3(zero_lane, zero_lane, zero_lane)
+    state = PathState(origin=zero_v3, direction=zero_v3 + 1.0,
+                      throughput=zero_v3, radiance=zero_v3,
+                      seed=zero_i.astype(jnp.uint32),
+                      alive=zero_i, miss_dir=zero_v3, miss_thr=zero_v3,
+                      ray_count=zero_i)
+    # (state, lane_frame, lane_sample, lane_bounce)
+    return state, zero_i, zero_i, zero_i
+
+
 def trace_progressive(trace_fn: TraceFn, cam: CameraParams,
                       px, py, width: int, height: int, frame0,
                       ray_depth: int, spp: int, n_frames: int,
@@ -680,19 +580,18 @@ def trace_progressive(trace_fn: TraceFn, cam: CameraParams,
                       russian_roulette: bool = True,
                       iter_hook=None) -> ProgressiveTraceResult:
     """Path-regeneration ("refill") sampling loop over ``n_frames``
-    progressive frames — the TPU answer to SIMT early-exit.
+    progressive frames — a wide machine's answer to SIMT early-exit.
 
-    The per-frame kernel pays ``ray_depth`` masked bounces per sample even
-    though Russian roulette ends most paths after ~2.7 segments, and RR's
-    per-lane binomial tail keeps one straggler per 3072-lane tile alive to
-    depth ~15, so the all-dead tile skip never fires (r4 depth_sweep: ~13
-    of 22 ms per 1080p frame is dead-lane work).  Here each lane treats its
+    The per-frame loop pays ``ray_depth`` masked bounces per sample on a
+    batch until its last lane dies, even though Russian roulette ends most
+    paths after ~2.7 segments: RR's per-lane binomial tail keeps one
+    straggler per batch alive to depth ~15.  Here each lane treats its
     pixel's samples for ``n_frames`` consecutive frames as a QUEUE: the
     moment its path ends (miss / RR death / depth), the lane flushes the
     sample's results and starts the next sample on the very next iteration.
     Dead-lane waste is only the FINAL tail, amortized over the whole block:
     iterations ~ n_frames * E[segments] + tail instead of
-    n_frames * ray_depth (3-4x fewer at the demo scene's depth 13).
+    n_frames * ray_depth.
 
     Equivalences vs ``n_frames`` sequential :func:`trace_paths` calls:
       * integer-exact: the RNG stream (a frame's first sample reseeds from
@@ -704,7 +603,7 @@ def trace_progressive(trace_fn: TraceFn, cam: CameraParams,
         trace_paths(frame0 + f)'s sample-s record, to within last-ulp
         rounding — the restructured program gives XLA different fusion
         contexts for the same arithmetic (tests/test_refill.py pins both
-        properties: integers exact, floats at 2e-6).
+        properties).
 
     ``n_valid``: optional traced i32 — frames ``f >= n_valid`` are skipped
     entirely (their slots stay zero), letting a partial tail chunk reuse
@@ -725,22 +624,12 @@ def trace_progressive(trace_fn: TraceFn, cam: CameraParams,
     fpx = jnp.asarray(px, jnp.float32)
     fpy = jnp.asarray(py, jnp.float32)
 
-    zero_lane = fpx * 0.0
-    zero_i = jnp.asarray(px, jnp.int32) * 0
-    zero_v3 = jnp.stack([zero_lane, zero_lane, zero_lane])
-
-    state = PathState(origin=zero_v3, direction=zero_v3 + 1.0,
-                      throughput=zero_v3, radiance=zero_v3,
-                      seed=zero_i.astype(jnp.uint32),
-                      alive=zero_i, miss_dir=zero_v3, miss_thr=zero_v3,
-                      ray_count=zero_i)
-    lane_frame = zero_i          # current frame index per lane
-    lane_sample = zero_i         # current sample within the frame
-    lane_bounce = zero_i         # bounces spent on the current sample
+    state, lane_frame, lane_sample, lane_bounce = init_progressive_state(px)
+    zero_v3 = state.radiance
     rad_sum = zero_v3
     miss_dir = [zero_v3 for _ in range(n_slots)]
     miss_thr = [zero_v3 for _ in range(n_slots)]
-    out_seed = zero_i.astype(jnp.uint32)
+    out_seed = state.seed
 
     max_iters = n_frames * spp * ray_depth
 
@@ -753,7 +642,7 @@ def trace_progressive(trace_fn: TraceFn, cam: CameraParams,
                 ray_depth, spp, n_valid, jitter, russian_roulette,
                 state, lane_frame, lane_sample, lane_bounce)
         # ---- flush completed samples into the (functional) slot lists ----
-        rad_sum = rad_sum + where3(done, state.radiance, state.radiance * 0.0)
+        rad_sum = rad_sum + where3(done, state.radiance, 0.0)
         miss_dir = [where3(done & (slot == k), state.miss_dir, miss_dir[k])
                     for k in range(n_slots)]
         miss_thr = [where3(done & (slot == k), state.miss_thr, miss_thr[k])
@@ -767,8 +656,8 @@ def trace_progressive(trace_fn: TraceFn, cam: CameraParams,
     for i in range(max_iters):
         # skip whole iterations once every lane has drained its queue
         # (cond(False) is the identity) — the amortized analogue of the
-        # per-frame kernel's all-dead tile skip
-        cond = jnp.any((carry[1] < n_valid))
+        # per-frame loop's all-dead skip
+        cond = any_lane(carry[1] < n_valid)
         if iter_hook is not None:
             iter_hook(i, cond)
         carry = jax.lax.cond(cond, iteration, lambda c: c, carry)
@@ -776,9 +665,9 @@ def trace_progressive(trace_fn: TraceFn, cam: CameraParams,
     (state, lane_frame, lane_sample, lane_bounce, rad_sum,
      miss_dir, miss_thr, out_seed) = carry
     return ProgressiveTraceResult(
-        rad_sum=rad_sum,
-        miss_dir=jnp.stack(miss_dir),
-        miss_thr=jnp.stack(miss_thr),
+        rad_sum=stack3(rad_sum),
+        miss_dir=jnp.stack([stack3(v) for v in miss_dir]),
+        miss_thr=jnp.stack([stack3(v) for v in miss_thr]),
         ray_count=state.ray_count,
         seed=out_seed,
     )
@@ -796,7 +685,7 @@ def progressive_iteration(trace_fn: TraceFn, cam: CameraParams, px, py,
     Shared verbatim by the oracle (:func:`trace_progressive`) and the
     Pallas kernel (tpt.kernels.trace, refill mode) so both execute the
     same float operations in the same order — the kernel differs only in
-    how it stores the flushed per-sample results (VMEM output refs vs
+    how it stores the flushed per-sample results (stores to its outputs vs
     functional lists).
 
     Returns (state', lane_frame', lane_sample', lane_bounce', done, slot):
@@ -811,8 +700,8 @@ def progressive_iteration(trace_fn: TraceFn, cam: CameraParams, px, py,
 
     # ---- refill: start the next queued sample on lanes whose path ended.
     # A frame's first sample reseeds from the pixel hash (the per-frame
-    # kernel contract, compute.glsl:106); later samples chain the running
-    # seed exactly like trace_paths's spp loop.
+    # contract, compute.glsl:106); later samples chain the running seed
+    # exactly like trace_samples's spp loop.
     start = has_work & (state.alive == 0)
     fresh = rng.pixel_seed(px, py, frame0 + lane_frame)
     seed0 = jnp.where(start,
@@ -826,9 +715,6 @@ def progressive_iteration(trace_fn: TraceFn, cam: CameraParams, px, py,
         throughput=where3(start, zero_v3 + 1.0, state.throughput),
         radiance=where3(start, zero_v3, state.radiance),
         seed=jnp.where(start, seed1, state.seed),
-        # int constants below are lane-derived (x*0 + c): Mosaic infers
-        # literal splats as replicated-layout vectors and cannot unify them
-        # with the concrete-layout loop carry of the kernel's rolled loop
         alive=jnp.where(start, state.alive * 0 + 1, state.alive),
         miss_dir=where3(start, zero_v3, state.miss_dir),
         miss_thr=where3(start, zero_v3, state.miss_thr),

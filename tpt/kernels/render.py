@@ -15,7 +15,6 @@ import jax.numpy as jnp
 
 from ..camera import camera_matrices
 from ..config import CameraConfig, RenderConfig
-from ..env import pack_block_table
 from ..integrator import apply_environment, apply_environment_blocked
 from ..progressive import AccumulatorState
 from ..scene import Scene
@@ -33,8 +32,8 @@ def render_fields(scene: Scene, env_faces, inv_proj, inv_view, view_pos, frame,
     Returns (image f32[H, W, 3], rays i32).
 
     ``counts``: optional static (n_spheres, n_cuboids) — specializes the
-    compiled kernel to the scene's primitive counts (fully unrolled scan,
-    ~1.5x faster)."""
+    compiled kernel to the scene's primitive counts (constant trip counts
+    for the closest-hit loops)."""
     del view_pos  # the kernel derives it from inv_view's translation column
     res = pallas_trace(scene, inv_proj, inv_view, frame,
                        focal_length, aperture_diameter,
@@ -73,31 +72,31 @@ def progressive_frames(accum: AccumulatorState, scene: Scene, env_table,
 
     Two equivalent execution strategies:
 
-    * ``refill=True`` (default on TPU when n_frames > 1): ONE launch of the
+    * ``refill=True`` (the default when n_frames > 1): ONE launch of the
       path-regeneration kernel (tpt.kernels.trace.pallas_trace_progressive)
       traces all frames — each lane drains its sample queue back-to-back,
-      so Russian roulette's dead-lane tail is paid once per BLOCK instead
-      of once per frame (~3x less bounce work at depth 13; PERF.md r5).
+      so Russian roulette's dead-lane tail is paid once per block of
+      frames instead of once per frame (PERF.md).
       The env fetch then runs once per (frame, sample) slot — identical
       gather count — and the block folds in as one running-mean step
       ``acc' = (n0*acc + sum_f frame_f) / (n0 + F)``, algebraically equal
       to the per-frame mix (compute.glsl:128) with one division instead of
       F (the whole block is ulp-equivalent: same draws and decisions,
       last-ulp float rounding from the restructured program).
-    * ``refill=False``: the r4 path — lax.scan over per-frame launches of
+    * ``refill=False``: lax.scan over per-frame launches of
       the trace kernel + blocked env fetch + recursive running-mean mix.
 
     ``env_table``: pack_block_table(faces) output.
     ``n_valid``: optional traced i32 — frames ``k >= n_valid`` contribute
     nothing (no accumulation, no frame advance, no ray count).  Lets a
     caller render a partial tail chunk with the SAME compiled program
-    instead of paying a second Mosaic compile for the remainder size.
+    instead of paying a second compile for the remainder size.
     Returns (new accumulator, total traced path segments i32).
     """
     if n_valid is None:
         n_valid = jnp.int32(n_frames)
     if refill is None:
-        refill = n_frames > 1 and jax.default_backend() == "tpu"
+        refill = n_frames > 1
 
     if refill:
         from ..env import sample_environment_blocked

@@ -2,7 +2,7 @@
 //
 // The reference implements its host runtime in C# (buffer serialization in
 // BaseSTD140Compatible/BufferObject, screenshot encoding via ImageSharp,
-// RNG in GLSL).  These are the TPU-framework equivalents, built as a plain
+// RNG in GLSL).  These are the framework's equivalents, built as a plain
 // shared library consumed through ctypes:
 //
 //   * std140 scene packing/unpacking — the exact UBO byte layout

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
-from ..vecmath import dot3, sqrt_clamped_grad
+from ..vecmath import dot3, sqrt_clamped_grad, where3
 
 
 def fresnel_schlick(cos_theta, n1, n2):
@@ -26,7 +26,7 @@ def reflect3(incident, normal):
 
 
 def refract3(incident, normal, eta):
-    """GLSL refract: returns (direction f32[3,...], tir_mask bool[...]).
+    """GLSL refract: returns (direction Vec3, tir_mask bool[...]).
 
     On total internal reflection GLSL returns vec3(0); we return the zero
     vector too (and the mask, so callers can implement a defined TIR policy
@@ -38,4 +38,4 @@ def refract3(incident, normal, eta):
     # keeps the k -> 0+ grazing boundary finite (tpt.vecmath)
     sq = sqrt_clamped_grad(jnp.where(tir, 1.0, jnp.maximum(k, 0.0)))
     out = eta * incident - (eta * n_dot_i + sq) * normal
-    return jnp.where(tir[None], 0.0, out), tir
+    return where3(tir, 0.0, out), tir

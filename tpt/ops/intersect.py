@@ -4,7 +4,7 @@ Mirrors the device intersectors of the reference
 (res/shaders/PathTracing/compute.glsl:261-294,316-332) and their CPU
 duplicates (src/GameObjects/Sphere.cs:34-50, src/GameObjects/Cuboid.cs:38-52).
 All functions are elementwise over arbitrary batch shapes; vectors are
-``f32[3, *batch]`` (see tpt.vecmath).
+:class:`tpt.vecmath.Vec3` values.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import numpy as np
 import jax.numpy as jnp
 
 from ..config import KERNEL_EPSILON
-from ..vecmath import dot3, normalize3, sqrt_clamped_grad
+from ..vecmath import dot3, normalize3, sqrt_clamped_grad, v3map
 
 FLOAT_MAX = np.float32(3.4028235e38)
 FLOAT_MIN = np.float32(-3.4028235e38)
@@ -43,8 +43,8 @@ def ray_cuboid(origin, direction, box_min, box_max):
     semantics; the min/max folds then discard the infinite slabs."""
     t0s = (box_min - origin) / direction
     t1s = (box_max - origin) / direction
-    tsm = jnp.minimum(t0s, t1s)
-    tbg = jnp.maximum(t0s, t1s)
+    tsm = v3map(jnp.minimum, t0s, t1s)
+    tbg = v3map(jnp.maximum, t0s, t1s)
     t1 = jnp.maximum(FLOAT_MIN, jnp.maximum(tsm[0], jnp.maximum(tsm[1], tsm[2])))
     t2 = jnp.minimum(FLOAT_MAX, jnp.minimum(tbg[0], jnp.minimum(tbg[1], tbg[2])))
     return t1, t2, t1 <= t2
@@ -68,6 +68,7 @@ def cuboid_normal(box_min, box_max, surface_pos, eps=KERNEL_EPSILON):
     guarded against a zero vector (GLSL UB) by flooring the squared length."""
     half = (box_max - box_min) * 0.5
     cs = surface_pos - (box_max + box_min) * 0.5
-    act = (jnp.abs(jnp.abs(cs) - half) <= eps).astype(jnp.float32)
-    n = jnp.sign(cs) * act
+    act = v3map(lambda c, h: (jnp.abs(jnp.abs(c) - h) <= eps)
+                .astype(jnp.float32), cs, half)
+    n = v3map(jnp.sign, cs) * act
     return normalize3(n, eps=np.float32(1e-20))

@@ -10,7 +10,7 @@ import math
 import numpy as np
 import jax.numpy as jnp
 
-from ..vecmath import normalize3, vec3
+from ..vecmath import Vec3, normalize3
 
 TWO_PI = np.float32(2.0 * math.pi)
 
@@ -25,7 +25,7 @@ def cosine_sample_hemisphere(normal, r_z, r_angle):
     r = jnp.sqrt(jnp.maximum(1.0 - z * z, 0.0))
     x = r * jnp.cos(a)
     y = r * jnp.sin(a)
-    return normalize3(normal + jnp.stack([x, y, z]))
+    return normalize3(normal + Vec3(x, y, z))
 
 
 def uniform_sample_unit_circle(r_angle, r_radius):

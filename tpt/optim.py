@@ -61,8 +61,8 @@ def make_renderer(scene, views: Sequence[CameraConfig], *, width: int,
     """Differentiable single-chip renderer over a set of camera views.
 
     Returns ``render(sphere_mat, cuboid_mat, frame, view) -> f32[H, W, 3]``
-    on the production differentiable path (Pallas forward + hand-written
-    reverse sweep, tpt.kernels.trace_grad).  ``view`` is a static index
+    on the production differentiable path (Pallas forward + XLA
+    reverse mode, tpt.kernels.trace_grad).  ``view`` is a static index
     into ``views``; multiple views solve identifiability (a parameter no
     light path observes cannot be recovered by any estimator).
     """

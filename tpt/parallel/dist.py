@@ -1,26 +1,25 @@
 """Multi-chip sharded rendering and inverse-rendering training.
 
 The reference is strictly single-GPU (SURVEY.md §2.3) — this module is the
-from-scratch scaling story, designed for TPU meshes:
+from-scratch scaling story over a mesh of cards:
 
   * mesh axes ``('dp', 'sp')``: ``dp`` shards *pixel rows* (image data
     parallelism — the natural axis of a path tracer: every pixel is
     independent), ``sp`` shards the *sample* axis (the honest
     sequence-parallel analogue: independent Monte-Carlo estimates of the
-    same pixels, combined with a psum-mean over ICI).  TP/PP/EP have no
-    analogue in a path tracer — there is no parameter matmul to split.
+    same pixels, combined with a psum-mean).  TP/PP/EP have no analogue in
+    a path tracer — there is no parameter matmul to split.
   * scene and camera parameters are replicated; the per-shard image block
     stays resident on its device; the only cross-device traffic is the
     O(H*W/dp) psum over ``sp`` and, in training, the O(|params|) gradient
-    psum — both inserted by shard_map/autodiff, riding ICI.
+    psum — both inserted by shard_map/autodiff, carried by NCCL.
   * ``sp`` sharding redefines the estimator (each sample shard draws an
     independent RNG stream via an offset frame index) — equally unbiased,
     but not bit-identical to the sequential-spp reference stream.  ``dp``
     sharding is bit-exact: seeds depend only on absolute pixel coords.
-  * multi-host: initialize with ``jax.distributed.initialize()`` before
-    building the mesh from ``jax.devices()``; shard ``dp`` across hosts
-    (each host renders a horizontal band) and keep ``sp`` intra-host so the
-    psum-mean rides ICI, not DCN.
+  * the cards of one host are joined all to all, so the mesh shape follows
+    the algorithm alone; several hosts join through
+    tpt.parallel.init.init_distributed before the mesh is built.
 
 Gradient notes: jax.grad flows through the whole renderer — bilinear env
 weights, Beer exponents, Fresnel, intersection distances, thin-lens optics.
@@ -151,8 +150,7 @@ def make_dist_renderer(mesh: Mesh, cfg: RenderConfig, n_sample_groups: int = Non
     return render
 
 
-def make_dist_progressive(mesh: Mesh, cfg: RenderConfig, n_frames: int,
-                          tile_rows: int | None = None):
+def make_dist_progressive(mesh: Mesh, cfg: RenderConfig, n_frames: int):
     """Sharded PROGRESSIVE block renderer — the multi-chip twin of
     kernels.render.progressive_frames(refill=True).
 
@@ -170,7 +168,7 @@ def make_dist_progressive(mesh: Mesh, cfg: RenderConfig, n_frames: int,
     aperture, frame0) -> (accum', rays) with ``accum`` donated.
     ``n_frames`` must divide by sp.
     """
-    from ..kernels.trace import DEFAULT_TILE_ROWS, pallas_trace_progressive
+    from ..kernels.trace import pallas_trace_progressive
     from ..progressive import AccumulatorState
 
     dp = mesh.shape["dp"]
@@ -183,7 +181,6 @@ def make_dist_progressive(mesh: Mesh, cfg: RenderConfig, n_frames: int,
     width, height, ray_depth, spp = cfg.width, cfg.height, cfg.ray_depth, cfg.spp
     counts = cfg.static_counts
     jitter = cfg.jitter
-    tile_rows = tile_rows or min(DEFAULT_TILE_ROWS, rows_local)
 
     @functools.partial(
         shard_map, mesh=mesh,
@@ -201,7 +198,7 @@ def make_dist_progressive(mesh: Mesh, cfg: RenderConfig, n_frames: int,
             scene, inv_proj, inv_view, frame0 + sp_idx * f_loc, focal,
             aperture, width=width, height=height, ray_depth=ray_depth,
             spp=spp, n_frames=f_loc, counts=counts, n_rows=rows_local,
-            row0=y0, jitter=jitter, tile_rows=tile_rows)
+            row0=y0, jitter=jitter)
         total = res.rad_sum
         for k in range(f_loc * spp):
             envc = sample_environment_blocked(env_table, res.miss_dir[k])
@@ -262,20 +259,20 @@ def make_train_step(mesh: Mesh, cfg: RenderConfig, n_sample_groups: int = None,
     ``param_mask``: optional (sphere_mask, cuboid_mask) 0/1 arrays shaped
     like the material tables; entries with mask 0 stay frozen.
 
-    ``backend``: 'kernel' = Pallas forward + Pallas backward
-    (tpt.kernels.trace_grad) per row band; 'oracle' = XLA integrator with
-    remat reverse-mode (the test reference).
+    ``backend``: 'kernel' = Pallas forward + XLA reverse-mode backward
+    (tpt.kernels.trace_grad) per row band; 'oracle' = XLA integrator
+    forward and backward (the test reference).
 
     The renderer runs sharded exactly as make_dist_renderer; autodiff
     transposes the psum-mean into broadcast and the replicated-scene reads
     into a cross-mesh gradient psum — the all-reduce the SURVEY's
-    parallelism table calls for, riding ICI.
+    parallelism table calls for.
 
     ``psum_bands``: split each device's row band into this many sub-bands,
     each with its OWN gradient psum (see banded_grad_block below) so the
-    collective for one band can overlap the next band's backward over
-    ICI/DCN — the SURVEY §7(g) overlap.  1 = the classic single psum
-    placed by autodiff after the whole backward.
+    collective for one band can overlap the next band's backward — the
+    SURVEY §7(g) overlap.  1 = the classic single psum placed by autodiff
+    after the whole backward.
 
     ``russian_roulette=False`` selects fixed-depth differentiable
     transport: RR'd pixel values depend only on albedo RATIOS (the RR
@@ -287,9 +284,8 @@ def make_train_step(mesh: Mesh, cfg: RenderConfig, n_sample_groups: int = None,
     if backend not in ("kernel", "oracle"):
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "kernel" and counts is None:
-        # the kernel backward requires static counts that fit the attr
-        # table; the (256, 64) oracle fallback would exceed ATTR_ROWS=128
-        # and crash at trace time with a confusing error
+        # reverse mode needs static trip counts; the padded (256, 64)
+        # fallback would differentiate ~6x wasted primitive tests
         raise ValueError("backend='kernel' requires explicit counts, e.g. "
                          "counts=(48, 7) for the demo scene")
     dp = mesh.shape["dp"]
@@ -370,11 +366,11 @@ def make_train_step(mesh: Mesh, cfg: RenderConfig, n_sample_groups: int = None,
         The single-psum path (autodiff through the shard_map boundary) emits
         ONE parameter psum strictly after the whole backward; splitting the
         device's row band gives XLA ``psum_bands`` independent
-        backward->psum chains, so the collective for sub-band b can ride
-        ICI/DCN while sub-band b+1's backward computes — the overlap
-        SURVEY §7(g) calls for.  The cotangent per band is the two material
-        tables (48+7 rows x 16 floats ~ 3.5 KB) — latency-, not
-        bandwidth-bound, which is exactly when overlap pays on DCN.
+        backward->psum chains, so the collective for sub-band b can run
+        while sub-band b+1's backward computes — the overlap SURVEY §7(g)
+        calls for.  The cotangent per band is the two material tables
+        (48+7 rows x 16 floats ~ 3.5 KB) — latency-, not bandwidth-bound,
+        which is when overlap pays across hosts.
         """
         dp_idx = jax.lax.axis_index("dp")
         sp_idx = jax.lax.axis_index("sp")

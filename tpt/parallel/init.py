@@ -1,27 +1,25 @@
-"""Multi-host bootstrap for TPU pods.
+"""Multi-host bootstrap.
 
 The reference is a single-process, single-GPU app (SURVEY.md §2.3 — absence
 verified across all 23 C# files); this module is the from-scratch multi-host
-story the TPU framework needs for the >= 85% 2+ host scaling target
-(BASELINE.md):
+story:
 
   * ``init_distributed()`` wraps ``jax.distributed.initialize`` with
-    fail-fast validation, so every host joins the same job and agrees on the
-    global device count before any mesh is built;
+    fail-fast validation, so every process joins the same job and agrees on
+    the global device count before any mesh is built;
   * ``make_host_mesh()`` builds the ('dp', 'sp') mesh host-aware: the ``dp``
     (pixel-band) axis runs *across* hosts — each host renders a horizontal
     band of the image and the only inter-host traffic is the tiny gradient /
-    ray-count psum riding DCN — while the ``sp`` (sample-group) axis stays
-    *inside* a host so its O(H*W/dp) psum-mean rides ICI.
+    ray-count psum — while the ``sp`` (sample-group) axis stays *inside* a
+    host, where its O(H*W/dp) psum-mean runs over the cards' own links.
 
-Run recipe (N hosts, e.g. a v5e-16 pod with 4 processes):
+Run recipe (N processes, one per host):
 
-    # on every host, with the standard TPU pod env vars set by the runtime
     python -c "
     from tpt.parallel.init import init_distributed, make_host_mesh
     from tpt.parallel import make_dist_renderer
-    init_distributed()                       # reads TPU pod metadata
-    mesh = make_host_mesh(sp=1)              # dp = all chips, across hosts
+    init_distributed('host0:8476', num_processes=N, process_id=RANK)
+    mesh = make_host_mesh(sp=1)              # dp = all cards, across hosts
     render = make_dist_renderer(mesh, cfg)   # each host computes its band
     "
 
@@ -46,10 +44,9 @@ def init_distributed(coordinator_address: Optional[str] = None,
                      process_id: Optional[int] = None) -> int:
     """Join (or create) the multi-host job.  Returns the process count.
 
-    With no arguments, relies on the TPU runtime's automatic discovery
-    (pod metadata / megascale env), exactly like ``jax.distributed``'s
-    documented zero-config path.  Explicit arguments override, for
-    CPU/GPU-style bring-up:
+    With no arguments, relies on ``jax.distributed``'s automatic discovery
+    of a cluster the runtime describes (e.g. SLURM); a plain machine
+    describes none, so pass the coordinator explicitly there:
 
         init_distributed("10.0.0.1:8476", num_processes=4, process_id=rank)
 
@@ -69,7 +66,7 @@ def init_distributed(coordinator_address: Optional[str] = None,
     if not explicit and jax.process_count() == 1 and not _initialized:
         # Single process, nothing to coordinate: the degenerate (and test)
         # case.  jax.distributed.initialize() would try to guess a
-        # coordinator and hang on machines without pod metadata.
+        # coordinator and fail on machines that describe no cluster.
         _validate_topology()
         return 1
 
@@ -102,11 +99,11 @@ def make_host_mesh(sp: int = 1, devices=None) -> Mesh:
     """('dp', 'sp') mesh with dp spanning hosts and sp contained in a host.
 
     ``jax.devices()`` orders devices process-major, so reshaping to
-    (n_hosts * chips_per_host / sp, sp) keeps every sp-group of chips inside
-    one process as long as ``sp`` divides the per-host chip count — which we
+    (n_hosts * cards_per_host / sp, sp) keeps every sp-group of cards inside
+    one process as long as ``sp`` divides the per-host card count — which we
     validate fail-fast.  The resulting traffic pattern: the sp psum-mean of
-    sample groups stays on ICI; only dp-axis reductions (scalar ray counts,
-    parameter gradients) cross DCN.
+    sample groups stays inside a host; only dp-axis reductions (scalar ray
+    counts, parameter gradients) cross between hosts.
     """
     explicit = devices is not None
     devices = list(devices) if explicit else list(jax.devices())
@@ -114,16 +111,16 @@ def make_host_mesh(sp: int = 1, devices=None) -> Mesh:
     if explicit:
         # group explicit lists by their actual owning process, not by
         # process-count division: a heterogeneous hand-picked list (e.g. 3
-        # chips from host A + 1 from host B) must not silently pass the
-        # ICI-containment check below
+        # cards from host A + 1 from host B) must not silently pass the
+        # in-host check below
         from collections import Counter
         owners = Counter(getattr(d, "process_index", 0) for d in devices)
         per_host = min(owners.values())
         if len(set(owners.values())) > 1 and sp > 1:
             raise ValueError(
                 f"explicit device list is host-imbalanced {dict(owners)}; "
-                "sp>1 needs equal chips per host so sample-group psums "
-                "stay on ICI")
+                "sp>1 needs equal cards per host so sample-group psums "
+                "stay inside a host")
     else:
         per_host = max(len(jax.local_devices()), 1)
     per_host = per_host or n
@@ -134,6 +131,6 @@ def make_host_mesh(sp: int = 1, devices=None) -> Mesh:
     if n_hosts > 1 and per_host % sp:
         raise ValueError(
             f"sp={sp} must divide the per-host device count {per_host} so "
-            "sample-group psums stay on ICI")
+            "sample-group psums stay inside a host")
     dp = n // sp
     return Mesh(np.asarray(devices).reshape(dp, sp), ("dp", "sp"))

@@ -3,7 +3,7 @@
 This is the framework's "CPU duplicate" in the sense of SURVEY.md §4 — an
 independent-of-Pallas implementation of the full GLSL algorithm used to
 verify the Pallas kernels (and usable as a renderer in its own right; it
-jits to decent TPU code by itself).
+jits to plain XLA code on any backend).
 
 Two equivalent entry points:
   * :func:`render_fields` — batched over the [H, W] pixel grid directly;

@@ -14,7 +14,7 @@ and seeds each pixel with
 Here the chain is functional: every draw takes a uint32 seed (any shape) and
 returns ``(value, new_seed)``.  All arithmetic is uint32 with wraparound, so a
 JAX run reproduces the shader's stream bit for bit.  The same code runs inside
-Pallas kernels (uint32 ops lower fine on TPU).
+the Pallas kernels.
 """
 
 from __future__ import annotations
@@ -51,8 +51,8 @@ def pcg_hash(seed):
 
 def u32_to_f32(u):
     """Exact uint32 -> float32 value conversion (round-to-nearest like a
-    native cast), written as int32 casts only: Mosaic/TPU has no u32->f32
-    cast.  hi*65536 is exact, and the single add performs the same
+    native cast), written as int32 casts only, which every backend lowers.
+    hi*65536 is exact, and the single add performs the same
     correctly-rounded step as a direct conversion would."""
     hi = (u >> np.uint32(16)).astype(jnp.int32).astype(jnp.float32)
     lo = (u & np.uint32(0xFFFF)).astype(jnp.int32).astype(jnp.float32)

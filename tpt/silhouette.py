@@ -62,6 +62,7 @@ from .env import sample_environment_planar
 from .integrator import (PathState, bounce_step, camera_params,
                          compose_trace_fn, make_scene_scan_fn,
                          make_xla_gather_fn, primary_ray, sample_draws)
+from .vecmath import Vec3, stack3
 
 
 def forward_matrices(cam: CameraConfig, width: int, height: int):
@@ -108,10 +109,10 @@ def silhouette_points(center, radius, eye, phis):
 
 def _radiance(trace_fn, o, d, seed, ray_depth: int, env_faces,
               russian_roulette: bool = False):
-    """Radiance along explicit rays (batch-planar [3, M]) — the bounce loop
-    + deferred env term, on the oracle trace."""
+    """Radiance along explicit rays (Vec3 of [M] arrays) — the bounce loop
+    + deferred env term, on the oracle trace.  Returns f32[3, M]."""
     zero = o[0] * 0.0
-    zero3 = jnp.stack([zero, zero, zero])
+    zero3 = Vec3(zero, zero, zero)
     state = PathState(origin=o, direction=d, throughput=zero3 + 1.0,
                       radiance=zero3, seed=seed,
                       alive=jnp.zeros_like(seed, jnp.int32) + 1,
@@ -120,7 +121,7 @@ def _radiance(trace_fn, o, d, seed, ray_depth: int, env_faces,
     for _ in range(ray_depth):
         state = bounce_step(state, trace_fn, russian_roulette)
     env = sample_environment_planar(env_faces, state.miss_dir)
-    return state.radiance + state.miss_thr * env
+    return stack3(state.radiance) + stack3(state.miss_thr) * env
 
 
 @partial(jax.jit, static_argnames=("cam", "width", "height", "ray_depth",
